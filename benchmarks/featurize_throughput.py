@@ -1,11 +1,9 @@
 """
 Device-featurization throughput benchmark: seconds per configuration
 for flagship-fit-shaped work (128-atom rattled bcc tungsten cells,
-2+3-body basis at the reference demo hyperparameters).
-
-The round-1 measurement was 0.24 s/config per-config-dispatch; the
-round-2 target (VERDICT item 5) is <= 0.05 s/config through shape-
-bucketed batched dispatch (ops/featurize_jax.featurize_dataset_device).
+2+3-body basis at the reference demo hyperparameters), through the
+shape-bucketed batched dispatch of
+ops/featurize_jax.featurize_dataset_device.
 
 Usage: python benchmarks/featurize_throughput.py [n_configs]
 """
@@ -14,10 +12,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import numpy as np
@@ -29,6 +23,7 @@ from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.data.composition import ChemicalSystem  # noqa: E402
 from uf3_tpu.ops.featurize_jax import featurize_dataset_device  # noqa: E402
 from uf3_tpu.representation.basis import BSplineBasis  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 
 def build_dataset(n_configs: int, seed: int = 0):
@@ -44,6 +39,8 @@ def build_dataset(n_configs: int, seed: int = 0):
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     n_configs = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     chemistry = ChemicalSystem(["W"], degree=3)
     basis = BSplineBasis(
@@ -63,8 +60,7 @@ def main():
     dt = time.perf_counter() - t0
     print(f"x_e {x_e.shape}, x_f {x_f.shape}")
     print(f"{dt:.2f} s total = {dt / n_configs * 1e3:.1f} ms/config "
-          f"({'PASS' if dt / n_configs <= 0.05 else 'above'} the "
-          f"50 ms/config round-2 target)")
+          f"on {jax.devices()[0].device_kind}")
 
 
 if __name__ == "__main__":

@@ -10,12 +10,6 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        REPO, ".jax_cache")
-    os.environ.setdefault(
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    os.execv(sys.executable, [sys.executable] + sys.argv)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -26,6 +20,7 @@ from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.ops import neighbors as nb  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 OUT = os.path.join(REPO, "benchmarks_data", "artifacts",
                    "probe_rebuild.json")
@@ -42,6 +37,8 @@ def timed(fn, *args, repeats=5):
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))
     geom = bulk("W", "bcc", a=3.1652) * (17, 17, 17)

@@ -3,9 +3,8 @@ Probe: which launches trip the staleness flag during NVT at the bench
 config, and how large the per-cycle drift actually is.  The adaptive
 boundary refresh triggers at half the stale threshold, so a genuine
 trip requires >0.125 A of drift inside one 24-step cycle -- far
-beyond ballistic motion at 300 K.  This pins down whether the NVT
-stale=True seen in validate_respa_mid.json is a real margin issue or
-a flag artifact.
+beyond ballistic motion at 300 K.  This pins down whether an NVT
+stale=True flag is a real margin issue or a flag artifact.
 """
 
 import json
@@ -13,14 +12,7 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        REPO, ".jax_cache")
-    os.environ.setdefault(
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    os.execv(sys.executable, [sys.executable] + sys.argv)
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -29,12 +21,15 @@ sys.path.insert(0, REPO)
 from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 OUT = os.path.join(REPO, "benchmarks_data", "artifacts",
                    "probe_stale.json")
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))
     geom = bulk("W", "bcc", a=3.1652) * (17, 17, 17)

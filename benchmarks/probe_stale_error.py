@@ -19,12 +19,6 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        REPO, ".jax_cache")
-    os.environ.setdefault(
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    os.execv(sys.executable, [sys.executable] + sys.argv)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -35,18 +29,19 @@ sys.path.insert(0, REPO)
 from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 OUT = os.path.join(REPO, "benchmarks_data", "artifacts",
                    "probe_stale_error.json")
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))
     geom = bulk("W", "bcc", a=3.1652) * (17, 17, 17)
-    dtype = (jnp.float32 if jax.devices()[0].platform != "cpu"
-             else jnp.float64)
-    kw = dict(dtype=dtype, rebuild_every=27, skin_2b=1.2,
+    kw = dict(dtype=jnp.float32, rebuild_every=27, skin_2b=1.2,
               capacity_2b=72, capacity_3b=16, n_respa=9, respa_mid=3)
     skin = float(sys.argv[1]) if len(sys.argv) > 1 else 0.5
     system = MDSystem(model, geom, skin=skin, **kw)
@@ -99,7 +94,7 @@ def main():
         "interpretation": "frozen-list force error at drift just "
                           "past the stale trip line; compare to the "
                           "f32 device-force tolerance 2e-4 eV/A "
-                          "(tests/test_tpu_numerics.py)",
+                          "(tests/test_gpu_numerics.py)",
     }
     with open(OUT, "w") as f:
         json.dump(result, f, indent=1)

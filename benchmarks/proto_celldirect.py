@@ -2,16 +2,13 @@
 Prototype benchmark: cell-direct pair forces (dense stencil candidate
 evaluation over the binned layout, zero per-atom row gathers) vs the
 gather-based pair kernel.  Also measures gather sensitivity to index
-locality.  Informs the round-2 throughput redesign.
+locality.
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +22,7 @@ from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.ops import neighbors as nb  # noqa: E402
 from uf3_tpu.ops import pallas_trio as pt  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 
 def timeit(fn, *args, iters=50, warmup=2):
@@ -39,6 +37,8 @@ def timeit(fn, *args, iters=50, warmup=2):
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     reps = 17
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))

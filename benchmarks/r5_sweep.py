@@ -1,7 +1,7 @@
 """
-Round-5 single-chip perf sweep at the 9,826-atom bench shape: the
-hoisted-role triangle trio kernel, the 0.6 A 3-body skin (staleness
-margin, see VERDICT r4 weak #2), and the 12/3/36 r-RESPA cadence --
+Single-GPU sweep at the 9,826-atom bench shape: the hoisted-role
+triangle trio kernel, the 0.6 A 3-body skin (staleness margin), and
+the 12/3/36 r-RESPA cadence --
 each measured for NVT throughput, the stale flag over the timed
 window, AND 648-step NVE drift (criterion 2e-4 eV/atom).
 
@@ -14,12 +14,6 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        REPO, ".jax_cache")
-    os.environ.setdefault(
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    os.execv(sys.executable, [sys.executable] + sys.argv)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -29,6 +23,7 @@ sys.path.insert(0, REPO)
 from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 OUT = os.path.join(REPO, "benchmarks_data", "artifacts",
                    "r5_sweep.json")
@@ -45,10 +40,9 @@ VARIANTS = {
                               respa_mid=3, trio_triangle=True),
     "tri_skin6_12_4_36": dict(rebuild_every=36, skin=0.6, n_respa=12,
                               respa_mid=4, trio_triangle=True),
-    # eager_refilter defaults True after the round-5 staleness
-    # hardening; these pin the full-layout eager configurations (the
-    # triangle variants above measured SLOWER end-to-end: irregular
-    # lane layouts cost more data movement than the halved math)
+    # eager_refilter defaults True (staleness hardening); these pin
+    # the full-layout eager configurations beside the triangle
+    # variants above
     "eager_9_3_27": dict(rebuild_every=27, skin=0.5, n_respa=9,
                          respa_mid=3, eager_refilter=True),
     "margin_9_3_27": dict(rebuild_every=27, skin=0.5, n_respa=9,
@@ -74,9 +68,8 @@ VARIANTS = {
     "eager_10_5_30": dict(rebuild_every=30, skin=0.5, n_respa=10,
                           respa_mid=5, eager_refilter=True),
     # wider C^2 switch band (2.5, 3.5): the V dS' term's stiffness
-    # dominated the outer-level shadow energy; width 1.0 A halves the
-    # bounded amplitude vs the (3.0, 3.5) default (validate_final_
-    # 12_6_36_lo25.json: 9.1e-5 vs 2.2e-4 eV/atom)
+    # dominates the outer-level shadow energy, and a 1.0 A band
+    # softens it against the (3.0, 3.5) default
     "eager_12_6_36_lo25": dict(rebuild_every=36, skin=0.5,
                                n_respa=12, respa_mid=6,
                                respa_switch=(2.5, 3.5),
@@ -85,11 +78,10 @@ VARIANTS = {
                                n_respa=18, respa_mid=6,
                                respa_switch=(2.5, 3.5),
                                eager_refilter=True),
-    # -- round-5b: blocked two-stage pack rebuild (now the builder
-    # default) -- re-measure the shipped 12/6/36 cadence, then probe
-    # whether a wider 2-body skin (rarer full rebuilds, costlier tail
-    # gather) or deeper launch chunking still pays once the rebuild
-    # is ~10x cheaper
+    # -- blocked two-stage pack rebuild (the builder default) --
+    # the shipped 12/6/36 cadence, then whether a wider 2-body skin
+    # (rarer full rebuilds, costlier tail gather) or deeper launch
+    # chunking pays
     "pack2_12_6_36": dict(rebuild_every=36, skin=0.5, n_respa=12,
                           respa_mid=6, respa_switch=(2.5, 3.5)),
     "pack2_sk16_c96": dict(rebuild_every=36, skin=0.5, n_respa=12,
@@ -162,6 +154,8 @@ def run_variant(model, geom, name, kw):
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))
     geom = bulk("W", "bcc", a=3.1652) * (17, 17, 17)

@@ -1,7 +1,7 @@
 """
-Validation for the round-4 bench defaults: NVE energy drift per
+Validation of bench cadences: NVE energy drift per
 r-RESPA depth and skin-staleness at longer rebuild cadences, on the
-headline 9826-atom tungsten config (real accelerator, one session).
+headline 9826-atom tungsten config (one GPU, one session).
 
 NVE drift criterion follows tests/test_device_potential.py (2e-4
 eV/atom over the run); staleness must be False or the cadence is
@@ -13,10 +13,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +23,12 @@ sys.path.insert(0, REPO)
 from uf3_tpu.data.atoms import bulk  # noqa: E402
 from uf3_tpu.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu.regression import least_squares as ls  # noqa: E402
+from uf3_tpu.util.runtime import enable_compile_cache, require_gpu  # noqa: E402,E501
 
 
 def main():
+    require_gpu()
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(
         os.path.join(REPO, "benchmarks_data", "model_2and3.json"))
     geom = bulk("W", "bcc", a=3.1652) * (17, 17, 17)

@@ -1,5 +1,5 @@
 """
-Two-phase tungsten melting-point trial on TPU (BASELINE config 4;
+Two-phase tungsten melting-point trial on the GPU (BASELINE config 4;
 reference supplement/melting_point/melting_uf.in): equilibrate a long
 bcc box under NPT at the trial temperature, melt one half with the
 other half pinned (effectively-infinite masses), re-cool the molten

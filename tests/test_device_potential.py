@@ -583,8 +583,7 @@ class TestNPT:
     def test_npt_launch_chunks_exact(self):
         """NPT stochastic-cell-rescaling with launch_chunks > 1 must
         reproduce the per-cycle-launch trajectory and cell exactly
-        (VERDICT r3 item 4: the melting flagship must not be
-        dispatch-bound)."""
+        (the melting protocol must not be dispatch-bound)."""
         model = ls.WeightedLinearModel.from_json(
             os.path.join("benchmarks_data", "model_2and3.json"))
         geom = bulk("W", "bcc", a=3.1652) * 3

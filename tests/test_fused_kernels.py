@@ -117,7 +117,7 @@ class TestTrioKernel:
         # static zero-block skipping must be exact: the skipped (b, c)
         # blocks have all-zero grid columns
         geom, params, pos, cell, nbr2, nbr3, e_ref, f_ref = w_setup
-        bundle = pt.build_trio_pallas(w_model, dtype=jnp.float64)
+        bundle = pt.build_trio_bundle(w_model, dtype=jnp.float64)
         n_active = sum(len(cs) for _, cs in bundle.active_bc)
         assert n_active < bundle.grid.shape[1] * bundle.grid.shape[2]
         dense = pt.trio_forces_unrolled(
@@ -135,9 +135,28 @@ class TestTrioKernel:
         assert np.allclose(np.asarray(dense[1]), np.asarray(sparse[1]),
                            atol=1e-12)
 
+    def test_block_padding_invariant(self, w_model, w_setup):
+        # 128 atoms in blocks of 24 pad the last block with 16 empty
+        # rows: padding must contribute nothing
+        geom, params, pos, cell, nbr2, nbr3, e_ref, f_ref = w_setup
+        bundle = pt.build_trio_bundle(w_model, dtype=jnp.float64)
+        kw = dict(spec_l=bundle.spec_l, spec_n=bundle.spec_n,
+                  l_basis=bundle.l_basis, n_basis=bundle.n_basis,
+                  active_bc=bundle.active_bc, window=bundle.window)
+        whole = pt.trio_forces_unrolled(
+            bundle.grid, pos, cell, nbr3.idx, nbr3.shift, nbr3.mask,
+            nbr3.rev, block_atoms=64, **kw)
+        padded = pt.trio_forces_unrolled(
+            bundle.grid, pos, cell, nbr3.idx, nbr3.shift, nbr3.mask,
+            nbr3.rev, block_atoms=24, **kw)
+        assert np.allclose(np.asarray(whole[0]), np.asarray(padded[0]),
+                           atol=1e-12)
+        assert np.allclose(np.asarray(whole[1]), np.asarray(padded[1]),
+                           atol=1e-12)
+
     def test_unrolled_matches_factorized(self, w_model, w_setup):
         geom, params, pos, cell, nbr2, nbr3, e_ref, f_ref = w_setup
-        bundle = pt.build_trio_pallas(w_model, dtype=jnp.float64)
+        bundle = pt.build_trio_bundle(w_model, dtype=jnp.float64)
         spec, coeff = pt.build_pair_fast(w_model, dtype=jnp.float64)
         e2, f2 = pt.pair_forces_unrolled(coeff, pos, cell, nbr2.idx,
                                          nbr2.shift, nbr2.mask,
@@ -163,7 +182,7 @@ class TestTrioKernel:
         virial exactly (this is what makes the sharded-NPT psum of
         owner-weighted virials exact)."""
         geom, params, pos, cell, nbr2, nbr3, e_ref, f_ref = w_setup
-        bundle = pt.build_trio_pallas(w_model, dtype=jnp.float64)
+        bundle = pt.build_trio_bundle(w_model, dtype=jnp.float64)
         kw = dict(spec_l=bundle.spec_l, spec_n=bundle.spec_n,
                   l_basis=bundle.l_basis, n_basis=bundle.n_basis,
                   block_atoms=64, with_virial=True, triangle=triangle)
@@ -180,19 +199,3 @@ class TestTrioKernel:
         e_sum = float(jnp.sum(parts[0][0]) + jnp.sum(parts[1][0]))
         assert np.allclose(v_sum, np.asarray(v_all), atol=1e-10)
         assert np.isclose(e_sum, float(jnp.sum(e_all)), atol=1e-10)
-
-    def test_pallas_interpret_matches(self, w_model, w_setup):
-        geom, params, pos, cell, nbr2, nbr3, e_ref, f_ref = w_setup
-        bundle = pt.build_trio_pallas(w_model, dtype=jnp.float64)
-        e_u, f_u = pt.trio_forces_unrolled(
-            bundle.grid, pos, cell, nbr3.idx, nbr3.shift, nbr3.mask,
-            nbr3.rev, spec_l=bundle.spec_l, spec_n=bundle.spec_n,
-            l_basis=bundle.l_basis, n_basis=bundle.n_basis,
-            block_atoms=64)
-        e_p, f_p = pt.trio_forces_pallas(
-            bundle.grid, pos, cell, nbr3.idx, nbr3.shift, nbr3.mask,
-            nbr3.rev, spec_l=bundle.spec_l, spec_n=bundle.spec_n,
-            l_basis=bundle.l_basis, n_basis=bundle.n_basis,
-            block_atoms=8, interpret=True)
-        assert np.allclose(np.asarray(e_p), np.asarray(e_u), atol=1e-10)
-        assert np.allclose(np.asarray(f_p), np.asarray(f_u), atol=1e-10)

@@ -81,6 +81,8 @@ def cmd_md(model_path: str, args) -> None:
     from uf3_tpu.data.atoms import bulk
     from uf3_tpu.forcefield.md import MDSystem
     from uf3_tpu.regression import least_squares as ls
+    from uf3_tpu.util.runtime import enable_compile_cache
+    enable_compile_cache()
     model = ls.WeightedLinearModel.from_json(model_path)
     element = model.bspline_config.element_list[0]
     atoms = bulk(element, "bcc", a=args.lattice) * args.reps

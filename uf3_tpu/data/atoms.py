@@ -287,6 +287,28 @@ def bulk(symbol: str,
                  pbc=True)
 
 
+def rattled_bcc_dataset(n_configs: int, seed: int = 0,
+                        symbol: str = "W", a: float = 3.1652):
+    """Synthetic fitting set of rattled bcc cells, made from ``seed``.
+
+    Every third configuration is a 4x4x4 cell (128 atoms), the others
+    3x3x3 (54 atoms); rattle amplitudes cycle from 0.02 to 0.10 A.
+    Energies and forces are Gaussian labels: they size and exercise
+    the fit path, they are not physical.  Returns (geometries,
+    energies, forces) with forces shaped (3, n_atoms) per config.
+    """
+    rng = np.random.RandomState(seed)
+    geometries, energies, forces = [], [], []
+    for i in range(n_configs):
+        reps = (3, 3, 3) if i % 3 else (4, 4, 4)
+        geom = bulk(symbol, "bcc", a=a) * reps
+        geom.rattle(0.02 + 0.08 * (i % 5) / 4, seed=i)
+        geometries.append(geom)
+        energies.append(float(rng.normal(-11.0, 0.1) * len(geom)))
+        forces.append(rng.normal(size=(3, len(geom))) * 0.5)
+    return geometries, energies, forces
+
+
 def molecule_from_arrays(symbols, positions) -> Atoms:
     """Non-periodic configuration from symbol and position arrays."""
     return Atoms(symbols=symbols, positions=positions, pbc=False)

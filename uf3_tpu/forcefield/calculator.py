@@ -5,7 +5,7 @@ Host (numpy, float64) inference engine with the same call semantics as
 the reference's ASE calculator (uf3/forcefield/calculator.py:40-487) but
 evaluated by contracting coefficients against the fused de Boor kernel
 directly -- no per-spline objects and no per-triplet Python loops.  The
-jit-compiled TPU engine (uf3_tpu/forcefield/md.py + uf3_tpu/ops) is the
+jit-compiled device engine (uf3_tpu/forcefield/md.py + uf3_tpu/ops) is the
 production path; this calculator is the accuracy oracle and interop shim.
 """
 

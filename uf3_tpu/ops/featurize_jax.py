@@ -34,10 +34,10 @@ from uf3_tpu.ops.neighbors import cell_transform
 
 from uf3_tpu.ops.pallas_trio import LegSpec, _dense_basis
 
-# einsum with full-precision accumulation: the TPU backend
-# silently rounds f32 matmul inputs to bf16 (~0.4% relative),
-# which is fatal for forces/features computed from cell-scale
-# values.  These paths are not throughput-critical.
+# einsum at full f32 precision: a default-precision f32 matmul may
+# round its inputs (to TF32 on the GPU, ~2^-11 relative), which is
+# fatal for forces/features computed from cell-scale values.  These
+# paths are not throughput-critical.
 import functools as _functools
 _einsum = _functools.partial(jnp.einsum, precision="highest")
 
@@ -339,10 +339,10 @@ def _featurize_bucket(spec: FeaturizeSpec, symmetry: int, n_cfg: int,
                       idx2, shift2, mask2, rev2,
                       idx3, shift3, mask3, rev3):
     """One jitted call featurizing a stacked shape bucket of n_cfg
-    configurations (lax.map over the config axis -- vmap re-lowers
-    the HIGHEST-precision einsums into much slower batched
-    contractions on TPU, measured round 1) with on-device 3B
-    compression, so one transfer round-trip serves the whole bucket."""
+    configurations (lax.map over the config axis rather than vmap,
+    which would re-lower the HIGHEST-precision einsums as batched
+    contractions) with on-device 3B compression, so one transfer
+    round-trip serves the whole bucket."""
     l_dim, nc = spec.l_basis, spec.n_basis
 
     def one(args):
@@ -375,10 +375,9 @@ def _featurize_bucket_dev(spec: FeaturizeSpec, symmetry: int,
     """Bucket featurization with ON-DEVICE neighbor construction:
     the host ships only (positions, cells); the explicit-image
     builder (exact for small periodic cells) runs inside the same
-    launch as the featurizer.  On a single-core host the numpy
-    supercell + cdist + pack pipeline costs 8-26 ms/config -- the
-    round-4 fit-wallclock bottleneck -- while the device build is
-    O(N^2 M) VPU work amortized across the lax.map.
+    launch as the featurizer, as O(N^2 M) elementwise work amortized
+    across the lax.map, in place of the numpy supercell + cdist +
+    pack pipeline on the host.
 
     Returns (e2, f2, e3c, f3c, overflow[n_cfg]); overflowed configs
     must be redone at larger capacity (the features are truncated)."""
@@ -430,9 +429,8 @@ def featurize_dataset_device(bspline_config,
     ``neighbors="device"`` (default) also builds the neighbor lists
     inside the bucket launch (explicit-image device builder, exact
     for small cells) at density-estimated capacities -- the host
-    ships only positions + cells.  The numpy supercell/cdist/pack
-    pipeline this replaces cost 8-26 ms/config on this single-core
-    host (the round-4 fit-wallclock bottleneck).  Configs whose
+    ships only positions + cells, instead of running the numpy
+    supercell/cdist/pack pipeline per config.  Configs whose
     estimated capacity overflows are redone through the measured
     host path ("host": always use that path).
     """

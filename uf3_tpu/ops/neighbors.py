@@ -31,10 +31,12 @@ class NeighborList(NamedTuple):
 
 
 def cell_transform(vecs, cell):
-    """``vecs @ cell`` decomposed into elementwise mul-adds.  The TPU
-    MXU rounds f32 matmul inputs to bf16 (~2^-8 relative), which on
-    cell vectors is a ~0.05 A displacement error -- fatal for forces.
-    Three VPU mul-adds keep full working precision at no MXU cost."""
+    """``vecs @ cell`` decomposed into elementwise mul-adds.  A
+    reduced-precision matmul (bf16 inputs, ~2^-8 relative; or TF32,
+    ~2^-11, the GPU's default for f32 dots) on cell vectors is a
+    0.01-0.05 A displacement error -- fatal for forces.  Three
+    mul-adds keep full working precision whatever the backend's
+    matmul precision."""
     return (vecs[..., 0:1] * cell[0] + vecs[..., 1:2] * cell[1]
             + vecs[..., 2:3] * cell[2])
 
@@ -47,10 +49,9 @@ def displacements(positions, cell, idx, shift):
 
 def gather_rows(table, idx):
     """table (N, D) gathered at idx (N, K) -> (N, K, D), as K per-column
-    row takes.  On TPU this runs ~2.2x faster than the one-shot 2D
-    gather (measured 1.38 vs 3.04 ms/step for the 10k-atom pair list):
-    each take is a plain row gather the compiler pipelines well, and no
-    (N, K, D) minor-dim-3 layout is materialized along the way."""
+    row takes: each take is a plain row gather, and no intermediate
+    (N*K, D) index layout is built.  Whether this beats the one-shot
+    2D gather on the GPU is not measured yet."""
     cols = [table.at[idx[:, k]].get(mode="promise_in_bounds")
             for k in range(idx.shape[1])]
     return jnp.stack(cols, axis=1)
@@ -225,9 +226,7 @@ def filter_neighbor_list(nbr: NeighborList, positions, cell,
     derived list (pass the current positions when re-filtering mid-run
     with a fresher snapshot than the parent's build positions)."""
     n_atoms = nbr.idx.shape[0]
-    # per-column row takes, then per-component (N, P) arithmetic (atom
-    # axis on lanes; scalar-element gathers per component are ~3x
-    # slower, one 2D row gather ~2.2x)
+    # per-column row takes, then per-component (N, P) arithmetic
     pj = gather_rows(positions, nbr.idx)
     d2 = jnp.zeros(nbr.idx.shape, dtype=positions.dtype)
     for k in range(3):
@@ -242,7 +241,7 @@ def filter_neighbor_list(nbr: NeighborList, positions, cell,
     overflow = nbr.overflow | jnp.any(count > capacity)
     # order-preserving prefix-sum pack: extract only the parent LANE
     # index per output slot (capacity masked reductions over the
-    # (N, P) int32 plane -- exact, no sort, no MXU rounding), then
+    # (N, P) int32 plane -- exact, no sort, no matmul rounding), then
     # one take_along_axis per field instead of materializing an
     # (N, P, C) one-hot and contracting it five times
     slot = jnp.cumsum(within.astype(jnp.int32), axis=1) - 1
@@ -379,8 +378,7 @@ def build_neighbor_list_cells(positions: jnp.ndarray,
       searchsorted-style reduction plus one lane gather.  Bitwise
       identical slots to ``"pack"`` at ~capacity/27 of its reduction
       work: ``"pack"`` re-reads the full (rows, 27*cap_b) plane once
-      per output slot, which at 10k atoms is ~8 GB of HBM traffic and
-      dominated the measured 24 ms rebuild.
+      per output slot, ~8 GB of memory traffic at 10k atoms.
     - ``"pack"``: single-stage prefix-sum pack -- slot of a
       within-cutoff candidate is its running count along the whole
       candidate axis, realized as ``capacity`` masked plane reductions.
@@ -389,12 +387,12 @@ def build_neighbor_list_cells(positions: jnp.ndarray,
       rather than the farthest.
     - ``"topk"``: per-row ``lax.top_k`` on a quantized-d2-majored key;
       nearest-first to ~10-bit d2 resolution (overflow drops the
-      farthest candidates first), at the cost of a lane sort that
-      dominates the build (~2x slower end-to-end at 10k atoms).
+      farthest candidates first), at the cost of a per-row sort that
+      dominates the build.
 
     ``bin_block`` processes bins in ``lax.map`` blocks of that many
-    rows so the candidate plane stays on-chip across the per-slot
-    extractions instead of round-tripping HBM (None = pick a block
+    rows so the per-slot extractions reduce a small block of the
+    candidate plane instead of the whole plane (None = pick a block
     that bounds the plane to ~2 MB).
 
     ``assume_wrapped=True`` asserts every position's fractional
@@ -469,9 +467,9 @@ def build_neighbor_list_cells(positions: jnp.ndarray,
                 "longer drops strictly farthest-first (overflow is "
                 "still detected)")
     # the candidate plane (rows, 27 * cap_b) is processed in lax.map
-    # blocks of bins: the per-slot extraction then reduces an on-chip
-    # block instead of re-reading an HBM-resident full plane per
-    # output slot (measured 24 ms -> ~2 ms for the 10k-atom rebuild)
+    # blocks of bins: the per-slot extraction then reduces a small
+    # block (which can stay in cache) instead of re-reading the full
+    # plane from device memory per output slot
     if bin_block is None:
         per_bin = max(1, cap_b * 27 * cap_b)
         bin_block = max(1, (2 * 1024 * 1024 // 4) // per_bin)
@@ -636,7 +634,7 @@ def needs_rebuild(nbr: NeighborList, positions, skin: float) -> jnp.ndarray:
     test it replaces was ~2x over-conservative for the observed
     failure mode (one thermal-tail atom): at the bench cadence the
     single-atom test tripped on launches whose true frozen-list force
-    error measured under 1e-6 eV/A (probe_stale_error.json)."""
+    error stayed under 1e-6 eV/A (benchmarks/probe_stale_error.py)."""
     delta = positions - nbr.reference_positions
     d2 = jnp.sum(delta * delta, axis=-1)
     top2, _ = jax.lax.top_k(d2, 2)

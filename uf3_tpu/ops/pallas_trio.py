@@ -1,26 +1,27 @@
 """
-Fused Pallas TPU kernel for the 3-body interaction -- the framework's
-equivalent of the upstream C++ `pair_style uf3` inner loop
-(lammps_plugin/README.rst), redesigned for the VPU/MXU:
+Fused 2+3-body force kernels in plain JAX (compiled by XLA) -- the
+framework's equivalent of the upstream C++ `pair_style uf3` inner loop
+(lammps_plugin/README.rst):
 
-  * per program: a block of BA atoms with their K-neighbor rows;
+  * atoms are processed in blocks of BA centers with their K-neighbor
+    rows (lax.map over blocks bounds the intermediates);
   * closed-form knot windows: every knot strategy (linear / lammps r^2 /
     geometric / inverse) is uniform in a transformed coordinate, so
     interval lookup is a floor() and the 8-knot de Boor window is an
     analytic clip expression -- no searchsorted, no gathers;
-  * dense per-leg basis matrices built in VMEM, the grid contraction
-    H = A @ G on the MXU, and the pair-space loops laid out with the
-    K*K pair axis on vector lanes (256 = 2 x 128, zero padding waste);
+  * dense per-leg basis matrices, the grid contraction H = A @ G as one
+    matmul per block, and the neighbor-pair loops laid out on a flat
+    K*K pair axis;
   * outputs per atom block: energy, center force, and slot-aligned
     neighbor-force partials (S1, S3', V3') so the cross-atom term
-    reduces to one tiny row gather outside the kernel.
+    reduces to one row gather after the block map.
 
 The single-trio-type (unary) fast path is `trio_forces_unrolled`;
 multi-element systems use `trio_forces_multi` / `pair_forces_multi`
-(the same pair-lane kernel looped over ordered trio/pair types with
-species gates, sharing distances, gathers and the reverse-slot force
-assembly across types).  `uf3_tpu.ops.potential` keeps the factorized
-einsum kernels as the oracle / general fallback.
+(the same pair-lane computation looped over ordered trio/pair types
+with species gates, sharing distances, gathers and the reverse-slot
+force assembly across types).  `uf3_tpu.ops.potential` keeps the
+factorized einsum kernels as the oracle / general fallback.
 """
 
 import functools
@@ -31,18 +32,23 @@ import jax.numpy as jnp
 import numpy as np
 
 from uf3_tpu.ops.neighbors import cell_transform, gather_rows
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 LINEAR, LAMMPS, GEOMETRIC, INVERSE = 0, 1, 2, 3
 
-# Matmul precision for the grid contractions.  The TPU backend default
-# rounds f32 matmul inputs to bf16 (~2^-8 relative), which costs ~3e-3
-# eV/A RMS force error vs the f64 oracle.  "high" (bf16_3x) recovers
-# f32-class forces (max error 8.8e-3 -> 5.5e-5 eV/A) at about half the
-# cost of "highest" (full f32, 1.4e-5).  Set to None to trade force
-# fidelity for a few % of MD throughput.
-MATMUL_PRECISION = "high"
+# f32 force contract: max |F_f32 - F_f64 oracle| in eV/A on the bench
+# model (rattled bcc W; chip_smoke.py, tests/test_gpu_numerics.py).
+F32_FORCE_TOL = 2e-4
+
+# Matmul precision for the trio grid contractions.  Max |dF| against
+# the f64 oracle on the 9,826-atom rattled W cell of chip_smoke.py,
+# with the contractions traced at each setting in turn on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit: "highest" 6.7e-5, bf16x3
+# 7.6e-5, "high" 1.8e-3, default 1.8e-3, TF32 1.8e-3, bf16 1.3e-2
+# eV/A.  "high" gives the same max and rms error as the explicit TF32
+# algorithm (its compiled HLO names no algorithm), so XLA:GPU runs it
+# as TF32, which breaks F32_FORCE_TOL; "highest" keeps it.  The cost
+# of "highest" against bf16x3 is not measured.
+MATMUL_PRECISION = "highest"
 
 
 class LegSpec(NamedTuple):
@@ -253,17 +259,15 @@ def _dense_basis(r, valid, spec: LegSpec, lo: int = 0, hi: int = None,
                  transposed: bool = False):
     """Dense basis and derivative matrices over the static basis-index
     window [lo, hi).  ``valid`` may be bool or float; masks are handled
-    as float arithmetic (Mosaic cannot insert minor dims on 1-bit
-    vectors).
+    as float arithmetic.
 
     The scatter of the 4 active taps into the dense window is ONE
     extended interval one-hot (built once, shared by values and
-    derivatives) consumed through 4 statically-shifted FMA chains --
-    measurably cheaper than per-(basis, tap) compare+select chains,
-    which dominated the trio kernel's VPU time (the one-hot costs
-    W+3 compares/lane; each output set then pays 4W FMAs/lane).  The
-    range gate folds into the 4 tap values once per lane instead of
-    once per (basis, lane).
+    derivatives) consumed through 4 statically-shifted FMA chains
+    instead of per-(basis, tap) compare+select chains (the one-hot
+    costs W+3 compares per element; each output set then pays 4W
+    FMAs).  The range gate folds into the 4 tap values once per
+    element instead of once per (basis, element).
 
     transposed=False: (..., hi-lo) with the basis axis minor.
     transposed=True:  (..., hi-lo, P) for r of shape (..., P) -- the
@@ -357,15 +361,15 @@ def _trio_block_compute(comps, valid, grid,
                         center_w=None,
                         precision=None):
     """
-    Fused per-block computation shared by the Pallas kernel and the
-    plain-XLA unrolled path: from per-component displacements (a tuple
-    of three (BA, K) arrays -- minor-dim-3 tensors pay 42x tile-padding
-    on TPU IO) + validity to (energy (BA,), center-force components
-    (3-tuple of (BA,)), S1/S3' (BA, K), V3' components (3-tuple of
-    (BA, K))).  All loops are static with the K*K pair axis kept on
-    vector lanes; the basis windows and (b, c) block list restrict the
-    work to the statically-live part of the coefficient grid (the
-    reference's default trims zero ~4/5 of it).
+    Fused per-block computation of the trio kernels: from
+    per-component displacements (a tuple of three (BA, K) arrays, so
+    no array carries a trailing axis of 3) + validity to (energy
+    (BA,), center-force components (3-tuple of (BA,)), S1/S3' (BA, K),
+    V3' components (3-tuple of (BA, K))).  All loops are static with
+    the K*K neighbor pairs on one flat axis; the basis windows and
+    (b, c) block list restrict the work to the statically-live part
+    of the coefficient grid (the reference's default trims zero ~4/5
+    of it).
     """
     dx, dy, dz = comps
     ba, k = dx.shape[0], dx.shape[1]
@@ -414,9 +418,8 @@ def _trio_block_compute(comps, valid, grid,
     # K*K pair-lane axis.  The m-role (repeat) and n-role (tile)
     # expansions are hoisted to ONE broadcast+reshape per tensor --
     # broadcasts on a new minor axis lower to free layout views,
-    # while the per-(b, c) jnp.repeat calls this replaces moved
-    # (BA, K*K) tensors through memory 54 times per block (~half the
-    # map's round-4 runtime)
+    # while per-(b, c) jnp.repeat calls would move (BA, K*K) tensors
+    # through memory 54 times per block
     h_m = jnp.broadcast_to(h.transpose(0, 2, 1)[:, :, :, None],
                            (ba, wc, k, k)).reshape(ba, wc, k * k)
     h1_m = jnp.broadcast_to(h1.transpose(0, 2, 1)[:, :, :, None],
@@ -451,8 +454,8 @@ def _trio_block_compute(comps, valid, grid,
     g3p = (t3 / r_mn).reshape(ba, k, k)
     s3 = jnp.sum(g3p, axis=2)
     # v3[m, c] = sum_n g3p[m, n] d[n, c]: per-component broadcast
-    # reduce; a batched (K x K)@(K x 3) dot_general runs at tiny-matmul
-    # MXU efficiency and costs more than the whole VPU pass
+    # reduce instead of a batched (K x K)@(K x 3) dot_general, which
+    # is too small to use a matrix unit well
     v3 = tuple(jnp.sum(g3p * dc[:, None, :], axis=2) for dc in comps)
     if with_virial:
         v6 = _trio_virial6(comps, wr, t3, r_mn, w=center_w)
@@ -525,9 +528,8 @@ def _tri_reduce_n(t, k: int, n_lanes: int, n_idx):
 def _tri_m_role_t(xt, k: int, lanes: int):
     """Tensor m-role: (BA, C, K) slot columns -> (BA, C, lanes) with
     the m-role value constant within each m-run.  ONE concat of
-    static broadcasts for all C columns -- the round-4 triangle
-    kernel lost 3.6x to per-(b, c) role expansion (54 concat chains
-    per block, anatomy_3l.json trio_map_triangle)."""
+    static broadcasts for all C columns instead of a concat chain per
+    live (b, c) column (54 per block)."""
     ba, ncol = xt.shape[0], xt.shape[1]
     parts = [jnp.broadcast_to(xt[:, :, m:m + 1], (ba, ncol, k - 1 - m))
              for m in range(k - 1)]
@@ -559,7 +561,7 @@ def _trio_block_compute_tri(comps, valid, grid,
     contributions recovered by a second accumulation chain
     (g2 = d a'[n]-role of the same value chain) instead of mirror
     lanes.  Exact: grid symmetry G[l, b, c] == G[b, l, c] is required
-    (build_trio_pallas only matches unary trios, whose decompressed
+    (build_trio_bundle only matches unary trios, whose decompressed
     grids are symmetrized).  Outputs match _trio_block_compute."""
     dx, dy, dz = comps
     ba, k = dx.shape[0], dx.shape[1]
@@ -600,8 +602,7 @@ def _trio_block_compute_tri(comps, valid, grid,
                  preferred_element_type=dtype).reshape(ba, k, ww * cw)
     # hoisted tensor roles: ONE concat for all (b, c) columns of h/h1
     # (m-role) and for the Ww basis columns of a/da (n-role), instead
-    # of a concat chain per live (b, c) -- the round-4 version spent
-    # 3.6x the whole map's budget on per-column role expansion
+    # of a concat chain per live (b, c)
     h_m = _tri_m_role_t(h.transpose(0, 2, 1), k, lanes)
     h1_m = _tri_m_role_t(h1.transpose(0, 2, 1), k, lanes)
     a_n = _tri_n_role_t(a_mat.transpose(0, 2, 1), k, lanes)
@@ -662,8 +663,8 @@ class ForceCache(NamedTuple):
     out of the rebuild lax.cond), XLA does NOT hoist loop-invariant
     derived quantities out of the scan -- mask float conversions,
     tile/repeat mask products, shift @ cell products, and strided
-    index-column slices get recomputed every step (+45% step time
-    measured at 10k atoms).  This cache computes them once per chunk.
+    index-column slices get recomputed every step.  This cache
+    computes them once per chunk.
     """
     idx_flats: Tuple        # blocked flat (b*N,) neighbor-index groups
     sd: jnp.ndarray         # (3, N, K) shift @ cell per component
@@ -675,9 +676,9 @@ class ForceCache(NamedTuple):
     s_slot: jnp.ndarray = None      # (N, K) int neighbor species
 
 
-# columns per take: per-step op-dispatch overhead dominates single
-# column takes; one big flat take loses the column structure XLA
-# pipelines well.  Measured flat curve min at 2-4 at 10k atoms.
+# neighbor columns per row take: one take per column means many small
+# gathers, one flat take over all columns loses the column structure.
+# 4 sits between; the best value on the GPU is not measured yet.
 GATHER_BLOCK = 4
 
 
@@ -748,38 +749,14 @@ def build_trio_cache(nbr, cell, dtype, species=None) -> ForceCache:
 
 def _pack_partials(s1, s3, v3_comps):
     """Slot-aligned partials packed as 8-wide rows (padded): the
-    cross-atom assembly then needs ONE row gather instead of three --
-    separate (N*K,), (N*K,), (N*K, 3) gathers cost ~3x the whole
-    packed gather on TPU (measured 3.1 ms/step -> 0.9 ms/step at 10k
-    atoms).  Returned flattened to (..., K*8) so block writers emit
-    full-lane tiles instead of 16x-padded minor-dim-8 stores."""
+    cross-atom assembly then needs ONE row gather instead of three
+    separate (N*K,), (N*K,), (N*K, 3) gathers.  Returned flattened to
+    (..., K*8) so each block writes one contiguous row per atom."""
     k = s1.shape[-1]
     zeros = jnp.zeros(s1.shape, s1.dtype)
     stacked = jnp.stack([s1, s3, *v3_comps, zeros, zeros, zeros],
                         axis=-1)
     return stacked.reshape(s1.shape[:-1] + (k * 8,))
-
-
-def make_trio_kernel(spec_l: LegSpec, spec_n: LegSpec,
-                     block_atoms: int, capacity: int,
-                     l_basis: int, n_basis: int):
-    """Build the fused kernel for a symmetric (unary-style) trio whose
-    first two legs share spec_l; third leg uses spec_n."""
-
-    def kernel(d_ref, valid_ref, grid_ref,
-               energy_ref, force_ref, s1_ref, s3_ref, v3_ref):
-        d = d_ref[:]
-        comps = (d[..., 0], d[..., 1], d[..., 2])
-        energy, fc, s1, s3, v3 = _trio_block_compute(
-            comps, valid_ref[:] > 0, grid_ref[:], spec_l, spec_n,
-            l_basis, n_basis)
-        energy_ref[:] = energy[:, None]
-        force_ref[:] = jnp.stack(fc, axis=-1)
-        s1_ref[:] = s1
-        s3_ref[:] = s3
-        v3_ref[:] = jnp.stack(v3, axis=-1)
-
-    return kernel
 
 
 def _pair_chain(r, spec: LegSpec, coefficients, n_basis: int,
@@ -824,8 +801,7 @@ def pair_forces_unrolled(coefficients,
     table gathers or interval one-hots.
 
     Neighbor positions come in as per-column row takes and every array
-    stays (N, K)-shaped per component: materializing (N, K, 3) tensors
-    (3 on the minor/lane axis) costs ~2.2x on TPU.
+    stays (N, K)-shaped per component: no (N, K, 3) tensor is built.
 
     ``switch=("short" | "tail", r_lo, r_hi)`` restricts the potential
     to one side of the C^2 quintic r-RESPA partition (S(r) V or
@@ -897,7 +873,8 @@ def pair_forces_poly(poly_table,
     [t_lo, inv_h, e0..e3, f0..f2] (f = dV/dr Horner coefficients).
 
     Same result as pair_forces_unrolled to ~1e-7 relative (the table is
-    built in f64); ~4x fewer VPU ops.  Returns (energy_sum, forces).
+    built in f64); ~4x fewer elementwise ops.  Returns (energy_sum,
+    forces).
     """
     n_int = poly_table.shape[0]
     d = (positions[nbr_idx] + cell_transform(nbr_shift, cell)
@@ -912,9 +889,10 @@ def pair_forces_poly(poly_table,
                == jax.lax.broadcasted_iota(jnp.int32,
                                            idx.shape + (n_int,),
                                            idx.ndim)).astype(d.dtype)
-    # HIGHEST precision: the default TPU matmul rounds f32 inputs to
-    # bf16, which loses ~0.4% of the table values (0.05 eV/A on the
-    # steep wall).  The matmul is tiny, 3-pass f32 is free here.
+    # HIGHEST precision: a default-precision f32 matmul may round its
+    # inputs (bf16 or TF32), which loses up to ~0.4% of the table
+    # values (0.05 eV/A on the steep wall).  The matmul is tiny, full
+    # f32 costs nothing here.
     rows = jnp.dot(one_hot.reshape(-1, n_int), poly_table,
                    precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=d.dtype).reshape(
@@ -974,7 +952,7 @@ def build_pair_fast(model, dtype=jnp.float32):
     return spec, jnp.asarray(coefficients, dtype=dtype)
 
 
-class TrioPallas(NamedTuple):
+class TrioBundle(NamedTuple):
     """Host-side bundle: compiled-kernel factory inputs."""
     spec_l: LegSpec
     spec_n: LegSpec
@@ -987,7 +965,7 @@ class TrioPallas(NamedTuple):
     #   triangle-lane kernel (half the pair-lane work) is exact
 
 
-def build_trio_pallas(model, dtype=jnp.float32):
+def build_trio_bundle(model, dtype=jnp.float32):
     """Closed-form leg specs + dense grid for the single-trio fast
     path; returns None when the model shape is not eligible."""
     config = model.bspline_config
@@ -1030,90 +1008,18 @@ def build_trio_pallas(model, dtype=jnp.float32):
     else:
         window = (0, grid.shape[0], 0, grid.shape[2])
     symmetric = bool(np.array_equal(grid, grid.transpose(1, 0, 2)))
-    return TrioPallas(spec_l=spec_l, spec_n=spec_n,
+    return TrioBundle(spec_l=spec_l, spec_n=spec_n,
                       grid=jnp.asarray(grid, dtype=dtype),
                       l_basis=grid.shape[0], n_basis=grid.shape[2],
                       active_bc=active_bc, window=window,
                       symmetric=symmetric)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("spec_l", "spec_n", "l_basis",
-                                    "n_basis", "block_atoms",
-                                    "interpret"))
-def trio_forces_pallas(grid,
-                       positions, cell, nbr_idx, nbr_shift, nbr_mask,
-                       nbr_rev,
-                       spec_l: LegSpec = None,
-                       spec_n: LegSpec = None,
-                       l_basis: int = 0,
-                       n_basis: int = 0,
-                       block_atoms: int = 8,
-                       interpret: bool = False):
-    """
-    Fused 3-body energy + forces.  Returns (atom_energy (N,),
-    forces (N, 3)).  Leg specs are static (closed-form knots).
-    """
-    bundle = TrioPallas(spec_l=spec_l, spec_n=spec_n, grid=grid,
-                        l_basis=l_basis, n_basis=n_basis)
-    n_atoms, capacity = nbr_idx.shape
-    d = (positions[nbr_idx] + cell_transform(nbr_shift, cell)
-         - positions[:, None, :])
-    r2 = jnp.sum(d * d, axis=-1)
-    r = jnp.sqrt(jnp.where(r2 > 0, r2, 1.0))
-    pad = (-n_atoms) % block_atoms
-    d_padded = jnp.pad(d, ((0, pad), (0, 0), (0, 0)))
-    valid = jnp.pad(nbr_mask.astype(d.dtype), ((0, pad), (0, 0)))
-    n_blocks = (n_atoms + pad) // block_atoms
-    kernel = make_trio_kernel(bundle.spec_l, bundle.spec_n,
-                              block_atoms, capacity,
-                              bundle.l_basis, bundle.n_basis)
-    out_shapes = (
-        jax.ShapeDtypeStruct((n_atoms + pad, 1), d.dtype),          # E
-        jax.ShapeDtypeStruct((n_atoms + pad, 3), d.dtype),          # fc
-        jax.ShapeDtypeStruct((n_atoms + pad, capacity), d.dtype),   # S1
-        jax.ShapeDtypeStruct((n_atoms + pad, capacity), d.dtype),   # S3'
-        jax.ShapeDtypeStruct((n_atoms + pad, capacity, 3), d.dtype),
-    )
-    block = lambda *dims: pl.BlockSpec(
-        (block_atoms,) + dims, lambda i: (i,) + (0,) * len(dims),
-        memory_space=pltpu.VMEM)
-    energy, f_center, s1, s3, v3 = pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            block(capacity, 3),
-            block(capacity),
-            pl.BlockSpec((bundle.l_basis, bundle.l_basis,
-                          bundle.n_basis),
-                         lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(block(1), block(3), block(capacity),
-                   block(capacity), block(capacity, 3)),
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(d_padded, valid, bundle.grid)
-    energy = energy[:n_atoms, 0]
-    packed = _pack_partials(s1[:n_atoms], s3[:n_atoms],
-                            tuple(v3[:n_atoms, :, c] for c in range(3)))
-    cache = ForceCache(
-        idx_flats=None, sd=None, valid=None,
-        rev_flats=blockify_columns(
-            (nbr_idx.astype(jnp.int32) * capacity
-             + nbr_rev.astype(jnp.int32)).T),
-        valid_b=nbr_mask)
-    comps = (d[..., 0], d[..., 1], d[..., 2])
-    return _assemble_forces(energy, f_center[:n_atoms], packed, comps,
-                            r, cache)
-
-
 def _assemble_forces(energy, f_center, packed, comps, r,
                      cache: ForceCache):
     """Neighbor-term assembly: one packed row gather through inverse
-    slots.  Uses flattened single-index blocked takes (multi-array
-    advanced indexing faults the TPU runtime at scale) of 8-wide rows
-    (three separate gathers are ~3x slower; see _pack_partials).
+    slots, as flattened single-index blocked takes of 8-wide rows
+    (see _pack_partials).
     ``f_center`` may be a (N, 3) array or a 3-tuple of (N,) columns."""
     n_atoms = r.shape[0]
     rows = gather_rows_blocks(packed.reshape(-1, 8), cache.rev_flats,
@@ -1155,12 +1061,12 @@ def trio_forces_unrolled(grid,
                          center_weight=None,
                          comps=None):
     """
-    Plain-XLA twin of the Pallas kernel: the same fused pair-lane
+    Fused single-trio-type 3-body energy + forces: the pair-lane
     computation applied blockwise with lax.map to bound intermediate
-    materialization.  Used when Mosaic compilation is unavailable.
-    With ``with_energy=False`` the value-accumulation chain is elided
-    (MD inner steps need forces only).  With ``with_virial=True`` the
-    return gains the analytic Voigt virial (xx, yy, zz, yz, xz, xy).
+    materialization.  With ``with_energy=False`` the value-accumulation
+    chain is elided (MD inner steps need forces only).  With
+    ``with_virial=True`` the return gains the analytic Voigt virial
+    (xx, yy, zz, yz, xz, xy).
     ``comps`` (3-tuple of (N, K)) reuses an existing displacement
     gather (3-level r-RESPA shares the innermost step's rows).
 
@@ -1228,8 +1134,7 @@ def trio_forces_unrolled(grid,
                 window=window, pair_pre=p_b, center_w=c_w)
         energy, f_center, s1, s3, v3 = out[:5]
         # pack inside the block so lax.map writes the gather-ready
-        # layout directly, flattened to full-lane (BA, K*8) tiles (a
-        # minor-dim-8 block store pays 16x tile padding on HBM writes)
+        # layout directly, flattened to (BA, K*8) rows
         packed = (energy, jnp.stack(f_center, axis=-1),
                   _pack_partials(s1, s3, v3))
         return packed + (out[5],) if with_virial else packed
@@ -1605,7 +1510,7 @@ def pair_forces_multi(coeffs, positions, cell, nbr_idx, nbr_shift,
 def select_minor(comps, sel, k_parent: int):
     """Minor-axis selection: out[a, k] = comp[a, sel[a, k]] for each
     per-component (N, K_parent) array, via a one-hot broadcast-reduce
-    on the VPU (XLA minor-axis gathers serialize on TPU)."""
+    instead of a gather along the minor axis."""
     oh = (sel[:, :, None]
           == jax.lax.broadcasted_iota(
               jnp.int32, sel.shape + (k_parent,), 2)
@@ -1820,10 +1725,9 @@ def pair_tail_forces(pair_coefficients, positions, cell, nbr2,
 # shared-gather fused step: ONE (N, K2) neighbor-position gather feeds
 # both the 2-body kernel and -- via the parent-slot selection the
 # filtered 3-body list carries (NeighborList.sel) -- the 3-body pair-
-# lane kernel.  The separate (N, K3) trio position gather this replaces
-# was ~15% of the MD step (XLA row gathers cost ~2.2 ns/row regardless
-# of locality or width; see benchmarks/proto_gather.py), while the
-# minor-axis one-hot selection costs ~0.1 ms at 10k atoms.
+# lane kernel, in place of a separate (N, K3) trio position gather.
+# Whether the one-hot selection beats that gather on the GPU is not
+# measured yet (MDSystem fused="separate" runs the other route).
 # ---------------------------------------------------------------------------
 @functools.partial(jax.jit,
                    static_argnames=("spec_pair", "n_basis_pair",

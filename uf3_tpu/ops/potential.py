@@ -32,10 +32,10 @@ from uf3_tpu.data import elements
 from uf3_tpu.ops import spline_jax as sj
 from uf3_tpu.ops.neighbors import NeighborList, displacements
 
-# einsum with full-precision accumulation: the TPU backend
-# silently rounds f32 matmul inputs to bf16 (~0.4% relative),
-# which is fatal for forces/features computed from cell-scale
-# values.  These paths are not throughput-critical.
+# einsum at full f32 precision: a default-precision f32 matmul may
+# round its inputs (to TF32 on the GPU, ~2^-11 relative), which is
+# fatal for forces/features computed from cell-scale values.  These
+# paths are not throughput-critical.
 import functools as _functools
 _einsum = _functools.partial(jnp.einsum, precision="highest")
 
@@ -294,7 +294,7 @@ def pair_contributions_fast(params: PotentialParams,
     """
     2-body kernel with one-hot interval selection: the per-pair
     polynomial row is obtained as onehot(interval) @ table -- a dense
-    matmul instead of an elementwise gather (TPU gathers serialize).
+    matmul instead of an elementwise gather.
     Loops over pair types (few) at trace time.
     """
     d = displacements(positions, cell, nbr.idx, nbr.shift)
@@ -353,7 +353,7 @@ def trio_contributions_factorized(params: PotentialParams,
                                   species, positions, cell,
                                   nbr3: NeighborList):
     """
-    3-body kernel as dense tensor contractions (MXU-shaped):
+    3-body kernel as dense tensor contractions (matmul-shaped):
 
       T[m, n]  = sum_abc A[m, a] B[n, b] C[m, n, c] G[a, b, c]
 

@@ -4,7 +4,7 @@ Device-mesh parallelism (jax.sharding + shard_map).
 UF3's training collective needs are small -- one (n_feat, n_feat) Gram
 reduction -- so a 1-D data-parallel mesh covers everything the
 reference's dask/futures task pool did (uf3/util/parallel.py:13-18) and
-runs it over ICI instead of process pools:
+runs it over the device interconnect instead of process pools:
 
   * batch-sharded Gram/ordinate accumulation: per-shard X^T X followed
     by a psum across the mesh;
@@ -46,7 +46,7 @@ def sharded_gram(x: np.ndarray,
                  ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """
     Gram matrix (X^T X) and ordinate (X^T y) with rows sharded across
-    the mesh; the reduction rides the mesh axis (psum over ICI).
+    the mesh; the reduction rides the mesh axis (psum).
     Zero-padded rows contribute nothing.
     """
     n_shards = mesh.shape[axis_name]
@@ -114,7 +114,7 @@ def fit_from_file_sharded(model,
     Mesh-parallel twin of WeightedLinearModel.fit_from_file
     (regression/least_squares.py:350): stream HDF5 feature chunks on
     the host, accumulate each chunk's Gram/ordinate on the device mesh
-    (rows sharded, psum over ICI), track energy/force variances with
+    (rows sharded, psum over the mesh), track energy/force variances with
     streaming VarianceRecorders, and solve on host in float64.  Full
     parity surface: per-sample weights, custom energy key, column
     drops.
@@ -170,7 +170,7 @@ def sharded_md_step_factory(system, mesh: Mesh, axis_name: str = "data",
     hence force rows) sharded across the mesh.  Each device runs the
     fused force kernels for its atom shard -- the displacement gathers
     read the replicated position array locally, and GSPMD inserts the
-    ICI collectives for the cross-shard reverse-slot exchange and the
+    collectives for the cross-shard reverse-slot exchange and the
     position all-gather at the integration step.
 
     Returns (chunk, shard_atoms): ``chunk(positions, velocities,

@@ -9,17 +9,21 @@ Semantics parity with uf3/regression/least_squares.py:144-891; the Gram
 accumulation has a device-sharded twin in uf3_tpu/parallel/mesh.py.
 """
 
+from __future__ import annotations
+
 import os
 import warnings
-from typing import Collection, Dict, List, Tuple
+from typing import TYPE_CHECKING, Collection, Dict, List, Tuple
 
 import numpy as np
-import pandas as pd
 
 from uf3_tpu.data import composition
 from uf3_tpu.representation import splines as sp
 from uf3_tpu.representation.basis import BSplineBasis
 from uf3_tpu.util import json_io
+
+if TYPE_CHECKING:  # pandas is needed only by the DataFrame helpers
+    import pandas as pd
 
 
 class VarianceRecorder:

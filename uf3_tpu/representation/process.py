@@ -10,17 +10,21 @@ h5py layout (the reference uses pandas/pytables) with the same
 chunk-naming scheme (features_000, ...) and restartable writes.
 """
 
+from __future__ import annotations
+
 import os
 import warnings
-from typing import Dict, List, Tuple
+from typing import TYPE_CHECKING, Dict, List, Tuple
 
 import numpy as np
-import pandas as pd
 
 from uf3_tpu.data import geometry as geo
 from uf3_tpu.data.atoms import Atoms
 from uf3_tpu.representation import featurize_np as fnp
 from uf3_tpu.representation.basis import BSplineBasis
+
+if TYPE_CHECKING:  # pandas is needed only by the DataFrame helpers
+    import pandas as pd
 
 
 def flatten_by_interactions(vector_map: Dict, pair_tuples: List) -> np.ndarray:
@@ -208,6 +212,7 @@ class BasisFeaturizer:
                  energy_key: str = "energy",
                  progress=None) -> pd.DataFrame:
         """Featurize every configuration of a standard dataframe."""
+        import pandas as pd
         eval_map = {}
         has_energy = energy_key in df_data.columns
         has_forces = all(k in df_data.columns for k in ("fx", "fy", "fz"))
@@ -278,6 +283,7 @@ def save_feature_db(dataframe: pd.DataFrame, filename: str,
                     table_name: str = "features") -> None:
     """Write one feature chunk: values + row index + column names."""
     import h5py
+    import pandas as pd
     with h5py.File(filename, "a") as f:
         if table_name in f:
             del f[table_name]
@@ -303,6 +309,7 @@ def save_feature_db(dataframe: pd.DataFrame, filename: str,
 def load_feature_db(filename: str,
                     table_name: str = "features") -> pd.DataFrame:
     import h5py
+    import pandas as pd
     with h5py.File(filename, "r") as f:
         group = f[table_name]
         values = group["values"][()]

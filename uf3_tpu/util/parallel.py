@@ -4,8 +4,8 @@ concurrent.futures executor and gather/merge results.
 
 This mirrors the reference's CPU backend (uf3/util/parallel.py, which
 prefers dask.distributed when available).  The framework's primary
-parallelism is device-side (uf3_tpu/parallel/mesh.py: pjit/shard_map over
-a TPU mesh); this module exists for host-bound preprocessing.
+parallelism is device-side (uf3_tpu/parallel/mesh.py: shard_map over
+a device mesh); this module exists for host-bound preprocessing.
 """
 
 import sys

@@ -2,39 +2,35 @@
 Profiling and observability hooks (net-new vs the reference, which has
 only print statements and tqdm bars; SURVEY.md section 5).
 
-  * trace(): context manager around jax.profiler for xprof traces of
-    the jitted step functions (gated: falls back to wall-clock timing
-    when the runtime does not support device tracing).
+  * trace(): context manager around jax.profiler for device traces of
+    the jitted step functions; profiler errors propagate.
   * Timer / report_timings: lightweight named wall-clock accumulation.
 """
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict
 
 _timings: Dict[str, list] = defaultdict(list)
 
+# fixed default trace directory inside the checkout (git-ignored)
+TRACE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "chiprun_out", "trace")
+
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/uf3_tpu_trace"):
-    """Capture an xprof/TensorBoard device trace when supported."""
+def trace(log_dir: str = TRACE_DIR):
+    """Capture a jax.profiler device trace into ``log_dir``."""
     import jax
-    started = False
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception:
-        pass
+    jax.profiler.start_trace(log_dir)
     t0 = time.time()
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        jax.profiler.stop_trace()
         _timings["trace"].append(time.time() - t0)
 
 
